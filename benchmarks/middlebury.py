@@ -15,11 +15,8 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", os.path.join(REPO, ".jax_cache"))
-# executable cache (utils/aotcache.py): each sequence shape compiles its own
-# whole-flow monolith — warm runs of the full 8-sequence table skip them all
-os.environ.setdefault("OFTPU_AOT_CACHE", os.path.join(REPO, ".aot_cache"))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
 
 import numpy as np  # noqa: E402
 
@@ -42,6 +39,9 @@ def main():
     ap.add_argument("--sequences", nargs="*", default=SEQUENCES)
     args = ap.parse_args()
 
+    from optical_flow_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from optical_flow_tpu.evaluation.metrics import flow_angular_error
     from optical_flow_tpu.interface import estimate_flow
     from optical_flow_tpu.io.flo import read_flow_file
@@ -55,16 +55,11 @@ def main():
             continue
         # first call pays the (shape-keyed) compile; report it separately
         # from the steady-state per-frame time so neither number is polluted.
-        # NOTE a degraded worker can stretch the first execution of a
-        # (cached or fresh) executable to hundreds of seconds while
-        # steady-state stays normal (r4's canonical artifact froze a 664.7 s
-        # RubberWhale warmup that was pure worker stall) — warmup here is
-        # provenance, not a performance claim.
         t0 = time.time()
         uv = np.asarray(estimate_flow(im1, im2, args.method, params))
         warmup = time.time() - t0
         # steady: up to 3 trials, accept when the best two agree within
-        # 20%, report best — same degraded-worker defense as bench.py
+        # 20%, report best
         trials = []
         for _ in range(3):
             t0 = time.time()
@@ -101,24 +96,6 @@ def main():
         "notebook_delta": "middlebury_benchmark.ipynb uses solver='pcg'",
         "deterministic": "re-runs reproduce AAE/AEPE to the rounded digits",
     }
-    # shared degraded-worker telemetry (see bench.py): lets a reviewer tell
-    # measurement from worker pathology without re-running
-    seq_rows = {k: r for k, r in results.items()
-                if not k.startswith("_") and "warmup_sec" in r}
-    retried = [k for k, r in seq_rows.items() if len(r["sec_trials"]) > 2]
-    results["_worker_health"] = {
-        "max_warmup_over_steady": round(
-            max(
-                (r["warmup_sec"] / max(r["sec"], 1e-9) for r in seq_rows.values()),
-                default=0.0,
-            ),
-            1,
-        ),
-        "sequences_needing_retry": retried,
-        "worker_suspect": bool(retried),
-        "note": "warmup includes (remote) compile or AOT-cache load; a multi-hundred-x ratio with normal steady = worker stall, not a perf property",
-    }
-
     gate_fail = check_ref_oracle_gates(results, args.method)
 
     if args.json:
@@ -129,14 +106,14 @@ def main():
 
 
 # Per-sequence accuracy-parity gates vs the measured reference oracle
-# (produced by benchmarks/ref_oracle.py running /root/reference itself on
+# (produced by benchmarks/ref_oracle.py running the NumPy reference itself on
 # every GT sequence; flagship artifact results_ref_oracle.json, other
 # families results_ref_oracle_methods.json).  Gates absorb solver drift
 # (reference 'backslash' spsolve vs this repo's matrix-free CG) — the
 # reference's own NumPy-vs-MATLAB delta is 0.06 deg AAE on RubberWhale —
 # and sit just above each method's largest measured repo delta:
 #   classic+nl-fast: Urban3 +0.090 deg / +0.0066 px
-#   classic++:       Grove3 -0.046 deg / Urban3 -0.0122 px (TPU better)
+#   classic++:       Grove3 -0.046 deg / Urban3 -0.0122 px (repo better)
 #   classic+nl:      same order as classic++
 #   hs:              Urban2 +0.033 deg / +0.034 px — quadratic HS on 22-px
 #                    motion is fixed-point-sensitive (8x tighter CG moves
@@ -158,16 +135,21 @@ SEQ_GATES = {
 }
 
 
-def check_ref_oracle_gates(results, method):
-    oracle = None
+def load_ref_oracle(method):
+    """Per-sequence AAE/AEPE of the NumPy reference for ``method`` (None if
+    the oracle has no entry for it)."""
     flagship = os.path.join(REPO, "benchmarks", "results_ref_oracle.json")
     methods = os.path.join(REPO, "benchmarks", "results_ref_oracle_methods.json")
-    if method == "classic+nl-fast" and os.path.exists(flagship):
+    if method == "classic+nl-fast":
         with open(flagship) as f:
-            oracle = json.load(f)
-    elif os.path.exists(methods):
-        with open(methods) as f:
-            oracle = json.load(f).get(method)
+            return json.load(f)
+    with open(methods) as f:
+        return json.load(f).get(method)
+
+
+def check_ref_oracle_gates(results, method):
+    """True when any sequence of ``results`` is outside its gate."""
+    oracle = load_ref_oracle(method)
     if oracle is None or method not in GATES:
         return False
     fail = False

@@ -1,4 +1,4 @@
-"""Multi-host (2-process) dryrun of the DP and SP paths over DCN.
+"""Multi-host (2-process) dryrun of the DP and SP paths across processes.
 
 BASELINE.md's multi-host clause (≥80% scaling efficiency at N≥2 hosts) had
 zero executed evidence through round 2: real multi-host hardware is
@@ -14,11 +14,11 @@ cross-process collectives carrying
   now executed end-to-end through the multi-process runtime), and
 * **SP** — the sharded Classic+NL level step over a global
   (batch=1, space=8) mesh: the halo ``ppermute`` between global devices 3
-  and 4 crosses the process boundary (the DCN analog), as do all CG
+  and 4 crosses the process boundary, as do all CG
   ``psum`` dot products.
 
 Both paths are compared against locally-computed unsharded references and
-the max abs diffs are recorded in ``MULTIHOST.json`` at the repo root.
+the max abs diffs are printed as the last line (one JSON object).
 
 Run:  python benchmarks/multihost.py                    # spawns 2 workers
       python benchmarks/multihost.py --worker I N PORT  # internal
@@ -30,11 +30,11 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-RESULT = os.path.join(REPO, "MULTIHOST.json")
-WORKER_OUT = "/tmp/oftpu_multihost_worker0.json"
+WORKER_OUT = os.path.join(tempfile.gettempdir(), "oftpu_multihost_worker0.json")
 
 
 def worker(pid: int, nproc: int, port: int) -> None:
@@ -235,7 +235,7 @@ def worker(pid: int, nproc: int, port: int) -> None:
     cg_sys = type(cg_sys)(*[make_global(sh_sp, np.asarray(f)) for f in cg_sys])
     cg_out = {}
     # cheby gets a deeper maxiter: the minimax polynomial needs ~1.7x the
-    # iterations (results_cheby_study.json) but pays 1 psum per 16-iter
+    # iterations but pays 1 psum per 16-iter
     # block vs classic's 3/iter and gear's 1/iter — the fabric-latency
     # trade this A/B exists to measure
     for algo in ("classic", "gear", "cheby"):
@@ -301,8 +301,6 @@ def launch() -> int:
     else:
         result["ok"] = False
         result["error"] = "worker process failed; see stderr above"
-    with open(RESULT, "w") as f:
-        json.dump(result, f, indent=1)
     print(json.dumps(result))
     return 0 if result.get("ok") else 1
 

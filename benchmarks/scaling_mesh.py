@@ -1,11 +1,8 @@
 #!/usr/bin/env python
 """Scaling efficiency vs device count on the virtual 8-device CPU mesh.
 
-BASELINE.md's north star is "%>=80% scaling efficiency at N>=2" — a
-throughput-per-device-vs-device-count curve.  Real multi-chip ICI is not
-available here (one v5e), so this harness measures the efficiency of the
-ACTUAL sharded programs on the 8-virtual-device CPU mesh, in the north
-star's own terms:
+A throughput-per-device-vs-device-count curve of the ACTUAL sharded
+programs on the 8-virtual-device CPU mesh:
 
 * **SP strong scaling** — the production row-sharded classic+nl level step
   (``parallel/spatial.py``) on a fixed 512x512 problem at
@@ -14,14 +11,12 @@ star's own terms:
   192x256 pair PER DEVICE at batch = N over an (N, 1) mesh:
   efficiency(N) = t(1) / t(N) (ideal: flat).
 
-CAVEAT (recorded in the artifact): CPU-mesh efficiency is a
-correctness-weighted LOWER bound on what ICI would deliver — XLA:CPU
-emulates the collectives through shared memory with none of ICI's
-overlap, and per-device compute shares one socket, so contention shows
-up as lost "efficiency" that a real pod would not see.  What the curve
-DOES pin: the sharded programs' collective structure scales (no
-serialization, no replicated work growing with N).  The 2-process Gloo
-runtime numbers live in MULTIHOST.json.
+CAVEAT (printed with the result): CPU-mesh efficiency is a
+correctness-weighted LOWER bound on what a device interconnect would
+deliver — XLA:CPU emulates the collectives through shared memory, and
+per-device compute shares one socket, so contention shows up as lost
+"efficiency".  What the curve DOES pin: the sharded programs' collective
+structure scales (no serialization, no replicated work growing with N).
 
 Run:  XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python benchmarks/scaling_mesh.py
@@ -36,7 +31,6 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
-RESULT = os.path.join(REPO, "benchmarks", "results_scaling_mesh.json")
 
 if "--xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
     os.environ["XLA_FLAGS"] = (
@@ -186,7 +180,7 @@ def main():
             "DP throughput saturates near the socket's parallel capacity), "
             "not collective structure.  Structure itself is pinned by the "
             "HLO collective-count tests (test_parallel.py) and the "
-            "2-process runtime (MULTIHOST.json)."
+            "2-process runtime (benchmarks/multihost.py)."
         ),
         "north_star_at_n2": "met" if sp_rows[2]["efficiency_pct"] >= 80 else "NOT met",
     }
@@ -195,13 +189,10 @@ def main():
         "CPU-mesh efficiency is a correctness-weighted LOWER bound: XLA:CPU "
         "emulates collectives through shared memory and all virtual devices "
         "share one socket, so host contention reads as lost efficiency a "
-        "real ICI pod would not see.  What the curve pins: the sharded "
+        "device interconnect would not see.  What the curve pins: the sharded "
         "programs' collective structure (no serialization / replicated "
-        "work growing with N).  Cross-process runtime numbers: MULTIHOST.json."
+        "work growing with N)."
     )
-    res["north_star"] = "BASELINE.md: >=80% scaling efficiency at N>=2"
-    with open(RESULT, "w") as f:
-        json.dump(res, f, indent=1)
     print(json.dumps(res))
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Demo: estimate optical flow on a Middlebury pair and visualize it.
 
-The TPU equivalent of the reference's ``optical_flow_demo.ipynb``:
+The equivalent of the reference's ``optical_flow_demo.ipynb``:
 
     python examples/demo.py [sequence] [method] [--out out.png]
 

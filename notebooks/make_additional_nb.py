@@ -23,10 +23,10 @@ nb.cells = [
         "# Additional demos — `optical_flow_tpu`\n"
         "\n"
         "Beyond the main demo notebook: the method-family ladder of Sun,\n"
-        "Roth & Black on a TPU v5e, parameter overrides, every plot style,\n"
+        "Roth & Black, parameter overrides, every plot style,\n"
         "sustained video streaming, and failure recovery.  (The reference\n"
         "listed an `optical_flow_demo_additional.ipynb` stripped from its\n"
-        "snapshot; this is the TPU framework's equivalent.)"
+        "snapshot; this is this framework's equivalent.)"
     ),
     code(
         "import sys, time\n"

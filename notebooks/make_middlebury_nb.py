@@ -3,7 +3,7 @@
 
 The reference listed a middlebury_benchmark.ipynb that was stripped from its
 snapshot (.MISSING_LARGE_BLOBS); this reconstructs the equivalent artifact on
-top of the TPU framework: the full 8-sequence Middlebury 'other' benchmark
+top of this framework: the full 8-sequence Middlebury 'other' benchmark
 with accuracy, per-frame wall time, and color-coded flow visualizations.
 """
 import nbformat as nbf
@@ -23,14 +23,14 @@ nb.cells = [
         "# Middlebury benchmark — `optical_flow_tpu`\n"
         "\n"
         "The full Middlebury *other* benchmark (all 8 sequences with public\n"
-        "ground truth) for the TPU-native framework: accuracy (AAE / STD /\n"
-        "AEPE), sustained per-frame wall time on one TPU chip, and\n"
+        "ground truth) for this framework: accuracy (AAE / STD /\n"
+        "AEPE), per-frame wall time on the device it runs on, and\n"
         "color-coded flow fields next to ground truth.\n"
         "\n"
         "The reference implementation listed a `middlebury_benchmark.ipynb`\n"
         "that is stripped from its snapshot (`.MISSING_LARGE_BLOBS`); its\n"
         "README reports RubberWhale only (AAE 2.463°, `README.md:289`).\n"
-        "This notebook is the complete table, executed on a TPU v5e."
+        "This notebook is the complete table."
     ),
     code(
         "import sys, time\n"
@@ -77,7 +77,7 @@ nb.cells = [
         "mean_aepe = np.mean([r[2] for r in results.values()])\n"
         "mean_t = np.mean([r[3] for r in results.values()])\n"
         "print(f'mean over 8 sequences:  AAE {mean_aae:.3f}   AEPE {mean_aepe:.4f}   {mean_t:.2f} s/frame')\n"
-        "print(f'reference (NumPy, this machine, RubberWhale only): AAE 2.463, 270.8 s/frame')"
+        "print('reference (NumPy, RubberWhale only): AAE 2.463')"
     ),
     md(
         "## Flow fields vs ground truth\n"
@@ -104,8 +104,8 @@ nb.cells = [
         "plt.show()"
     ),
     md(
-        "The per-sequence numbers match `benchmarks/results_middlebury.json`\n"
-        "(the scripted harness, `benchmarks/middlebury.py`).  Grove3/Urban3\n"
+        "The scripted harness for the same table is `benchmarks/middlebury.py`.\n"
+        "Grove3/Urban3\n"
         "carry the largest errors for every implementation of this pipeline —\n"
         "large motions with occlusions at foliage/building boundaries."
     ),

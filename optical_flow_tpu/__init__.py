@@ -1,9 +1,9 @@
-"""optical_flow_tpu — a TPU-native dense optical flow engine.
+"""optical_flow_tpu — a dense optical flow engine on an accelerator.
 
 A from-scratch JAX / XLA / Pallas implementation of the Sun-Roth-Black
 ("Secrets of Optical Flow Estimation and Their Principles", CVPR 2010)
 optical flow pipeline, with the full capability surface of the NumPy
-reference (jordanshivers/optical-flow-python) redesigned TPU-first:
+reference (jordanshivers/optical-flow-python) redesigned for an accelerator:
 
 * All hot kernels (warping, derivatives, ROF, median / weighted-median
   filtering, linear solves) are matrix-free, statically-shaped XLA or
@@ -15,7 +15,7 @@ reference (jordanshivers/optical-flow-python) redesigned TPU-first:
   program.
 * Scale-out is via ``jax.sharding.Mesh`` + ``shard_map``: the image grid
   is tiled across devices with halo exchange, and CG inner products
-  reduce with ``psum`` over ICI (see ``optical_flow_tpu.parallel``).
+  reduce with ``psum`` (see ``optical_flow_tpu.parallel``).
 
 Public API mirrors the reference package (``optical_flow/__init__.py:10-25``).
 """

@@ -1,7 +1,7 @@
 """Prefetching sequence loader for benchmark / video pipelines.
 
 Host I/O (PNG decode, .flo parsing) overlaps with device compute: a
-background thread pool decodes upcoming items while the TPU runs the
+background thread pool decodes upcoming items while the device runs the
 current one — the serving-side data pipeline the single-threaded reference
 lacks (SURVEY §2).
 """

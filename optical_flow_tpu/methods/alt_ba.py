@@ -279,7 +279,7 @@ class AltBAOpticalFlow(BAOpticalFlow):
         ):
             return None
         plan = self._make_alt_plan(tuple(int(s) for s in im1.shape[:2]))
-        return self._cached_fused(alt_ba_flow_from_rgb, "alt_ba_flow_from_rgb", plan, im1, im2)
+        return alt_ba_flow_from_rgb(plan, im1, im2, self.dtype)
 
     def compute_flow_from_gray(self, im1, im2):
         if not (
@@ -291,7 +291,7 @@ class AltBAOpticalFlow(BAOpticalFlow):
         ):
             return None
         plan = self._make_alt_plan(tuple(int(s) for s in im1.shape[:2]))
-        return self._cached_fused(alt_ba_flow_from_gray, "alt_ba_flow_from_gray", plan, im1, im2)
+        return alt_ba_flow_from_gray(plan, im1, im2, self.dtype)
 
     def compute_flow(self, init=None, gt=None):
         """GNC schedule with qterm / replacement flags (``alt_ba.py:81-187``)."""

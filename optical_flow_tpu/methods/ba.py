@@ -317,7 +317,7 @@ class BAOpticalFlow(BaseOpticalFlow):
         ):
             return None
         plan = self._make_plan(tuple(int(s) for s in im1.shape[:2]))
-        return self._cached_fused(ba_flow_from_rgb, "ba_flow_from_rgb", plan, im1, im2)
+        return ba_flow_from_rgb(plan, im1, im2, self.dtype)
 
     def compute_flow_from_gray(self, im1, im2):
         if not (
@@ -329,7 +329,7 @@ class BAOpticalFlow(BaseOpticalFlow):
         ):
             return None
         plan = self._make_plan(tuple(int(s) for s in im1.shape[:2]))
-        return self._cached_fused(ba_flow_from_gray, "ba_flow_from_gray", plan, im1, im2)
+        return ba_flow_from_gray(plan, im1, im2, self.dtype)
 
     def compute_flow(self, init=None, gt=None):
         """GNC + coarse-to-fine estimation (``ba.py:57-138``)."""

@@ -281,9 +281,7 @@ class ClassicNLOpticalFlow(BAOpticalFlow):
             return None
         sz = tuple(int(s) for s in im1.shape[:2])
         plan = self._make_nl_plan(sz, use_color=self.color_images is not None)
-        return self._cached_fused(
-            classic_nl_flow_from_rgb, "classic_nl_flow_from_rgb", plan, im1, im2
-        )
+        return classic_nl_flow_from_rgb(plan, im1, im2, self.dtype)
 
     def compute_flow_from_gray(self, im1, im2):
         if not (
@@ -296,9 +294,7 @@ class ClassicNLOpticalFlow(BAOpticalFlow):
             return None
         sz = tuple(int(s) for s in im1.shape[:2])
         plan = self._make_nl_plan(sz, use_color=self.color_images is not None)
-        return self._cached_fused(
-            classic_nl_flow_from_gray, "classic_nl_flow_from_gray", plan, im1, im2
-        )
+        return classic_nl_flow_from_gray(plan, im1, im2, self.dtype)
 
     def compute_flow(self, init=None, gt=None):
         """GNC + coarse-to-fine with triple pyramids (``classic_nl.py:89-198``)."""

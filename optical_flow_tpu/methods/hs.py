@@ -243,7 +243,7 @@ class HSOpticalFlow(BaseOpticalFlow):
         ):
             return None
         plan = self._make_plan(tuple(int(s) for s in im1.shape[:2]))
-        return self._cached_fused(hs_flow_from_rgb, "hs_flow_from_rgb", plan, im1, im2)
+        return hs_flow_from_rgb(plan, im1, im2, self.dtype)
 
     def compute_flow_from_gray(self, im1, im2):
         if not (
@@ -255,7 +255,7 @@ class HSOpticalFlow(BaseOpticalFlow):
         ):
             return None
         plan = self._make_plan(tuple(int(s) for s in im1.shape[:2]))
-        return self._cached_fused(hs_flow_from_gray, "hs_flow_from_gray", plan, im1, im2)
+        return hs_flow_from_gray(plan, im1, im2, self.dtype)
 
     def compute_flow(self, init=None, gt=None):
         """Coarse-to-fine Horn–Schunck (``hs.py:49-99``)."""

@@ -4,14 +4,14 @@ Reference: ``utils/derivatives.py``.  Three interpolation paths are
 supported with exact semantics:
 
 * ``'cubic'`` (default) — cubic B-spline warping.  scipy's recursive
-  prefilter is replaced by dense per-axis inverse matrices (MXU matmuls,
+  prefilter is replaced by dense per-axis inverse matrices (matmuls,
   see :mod:`optical_flow_tpu.ops.interp`), evaluation is a 4x4 gather.
 * ``'bi-linear'`` — 2x2 gather.
 * ``'bi-cubic'`` — Hermite bicubic with *analytical* spatial derivatives
   (Numerical Recipes 16x16 coefficient matrix).  The per-pixel coefficient
-  solve is batched into one (16,16) x (16, N) MXU matmul.
+  solve is batched into one (16,16) x (16, N) matmul.
 
-TPU-first restructuring vs the reference: everything that depends only on
+Restructuring vs the reference: everything that depends only on
 the *images* (derivative images, spline coefficients, Hermite corner
 tables) is split into :func:`precompute_warp` so the per-warping-iteration
 work (:func:`warp_deriv`) is pure gather + FMA.  The reference recomputes
@@ -27,6 +27,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from optical_flow_tpu.ops.filters import correlate2d
@@ -149,12 +150,15 @@ def hermite_eval(taps, ax, ay, dtype):
     """(val, d/dx, d/dy) from 16 corner taps and in-cell offsets (ax, ay).
 
     ``taps`` is (..., 16): for each of (Z, DX, DY, DXY) the four corners in
-    :data:`HERMITE_CORNER_SHIFTS` order.  One MXU matmul with the Numerical
+    :data:`HERMITE_CORNER_SHIFTS` order.  One matmul with the Numerical
     Recipes coefficient matrix solves the 16 polynomial coefficients for
     every pixel at once.
     """
     V = jnp.moveaxis(taps, -1, 0)  # (16, ...)
-    C = jnp.tensordot(jnp.asarray(W_BICUBIC, dtype=dtype), V, axes=1)
+    C = jnp.tensordot(
+        jnp.asarray(W_BICUBIC, dtype=dtype), V, axes=1,
+        precision=jax.lax.Precision.HIGHEST,
+    )
 
     ax_p = [jnp.ones_like(ax), ax, ax * ax, ax * ax * ax]
     ay_p = [jnp.ones_like(ay), ay, ay * ay, ay * ay * ay]

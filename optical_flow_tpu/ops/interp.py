@@ -1,11 +1,11 @@
 """Image sampling: bilinear and cubic B-spline interpolation.
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 * The cubic-spline *prefilter* (scipy's recursive IIR pass) is recast as a
   dense matmul: the interpolation system is tridiagonal with mirror folding,
   so its inverse is a fixed (n, n) matrix per axis length.  ``coeffs =
-  P_h @ im @ P_w^T`` runs on the MXU in one fused pass instead of a
+  P_h @ im @ P_w^T`` runs as two matmuls instead of a
   sequential scan — exact to machine precision against
   ``scipy.ndimage.spline_filter`` (verified in tests).
 * Evaluation gathers a 4×4 (cubic) or 2×2 (linear) neighborhood.  Gathers
@@ -21,7 +21,16 @@ from __future__ import annotations
 from functools import lru_cache
 
 import numpy as np
+import jax
 import jax.numpy as jnp
+
+# Full float32 precision for the resize / prefilter contractions: the GPU's
+# default float32 matmul may run in TF32 (~3 decimal digits).
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=HIGHEST)
 
 
 # ---------------------------------------------------------------------------
@@ -36,7 +45,7 @@ def bspline_prefilter_matrix(n: int) -> np.ndarray:
     Row i of the system: (c[i-1] + 4 c[i] + c[i+1]) / 6 = f[i], with mirror
     folding c[-1] = c[1], c[n] = c[n-2].  The dense inverse reproduces
     ``scipy.ndimage.spline_filter1d(order=3)`` exactly and turns the
-    prefilter into an MXU matmul.
+    prefilter into a matmul.
     """
     if n == 1:
         return np.ones((1, 1))
@@ -54,11 +63,11 @@ def bspline_prefilter_matrix(n: int) -> np.ndarray:
 
 
 def spline_coeffs_2d(im):
-    """Cubic B-spline coefficients of a 2-D image via two MXU matmuls."""
+    """Cubic B-spline coefficients of a 2-D image via two matmuls."""
     H, W = im.shape
     Ph = jnp.asarray(bspline_prefilter_matrix(H), dtype=im.dtype)
     Pw = jnp.asarray(bspline_prefilter_matrix(W), dtype=im.dtype)
-    return Ph @ im @ Pw.T
+    return _mm(_mm(Ph, im), Pw.T)
 
 
 def _bspline3(t):
@@ -82,8 +91,8 @@ def sample_cubic_spline(coeffs, ys, xs):
     marks strictly-out-of-domain points (caller decides the fill value,
     matching map_coordinates' ``cval`` contract).
 
-    The 4x4 tap read is one 16-plane batched gather (one-hot MXU matmuls
-    on TPU — see ops/gather.py); tap weights come from the unclamped
+    The 4x4 tap read is one 16-plane gather (see ops/gather.py); tap
+    weights come from the unclamped
     fractional offsets, so interior results are exact.
     """
     from optical_flow_tpu.ops.gather import gather_shifted_planes
@@ -152,7 +161,7 @@ def matlab_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
 
     MATLAB's coordinate convention u = (out + 0.5) / scale - 0.5, clipped to
     the valid range (reference ``pyramid.py:11-41``).  Returned as a dense
-    (n_out, n_in) matrix so a 2-D resize is two MXU matmuls.
+    (n_out, n_in) matrix so a 2-D resize is two matmuls.
     """
     scale = n_out / n_in
     u = (np.arange(n_out) + 0.5) / scale - 0.5
@@ -173,5 +182,5 @@ def matlab_imresize_bilinear(im, out_hw):
     Rh = jnp.asarray(matlab_resize_matrix(H, new_H), dtype=im.dtype)
     Rw = jnp.asarray(matlab_resize_matrix(W, new_W), dtype=im.dtype)
     if im.ndim == 2:
-        return Rh @ im @ Rw.T
-    return jnp.einsum("oi,ijc,pj->opc", Rh, im, Rw)
+        return _mm(_mm(Rh, im), Rw.T)
+    return jnp.einsum("oi,ijc,pj->opc", Rh, im, Rw, precision=HIGHEST)

@@ -1,7 +1,7 @@
 """Occlusion detection from flow divergence + brightness constancy.
 
 Reference: ``utils/occlusion.py``.  Pure shift arithmetic and a bilinear
-(clamped) warp — one fused VPU program.  Note the reference uses 0-based
+(clamped) warp — one fused elementwise program.  Note the reference uses 0-based
 coordinates here (unlike ``partial_deriv``), which this matches natively.
 """
 from __future__ import annotations

@@ -1,68 +1,32 @@
-"""Pallas TPU kernel: color-guided weighted median via exact bit-bisection.
+"""Pallas GPU kernel (Triton route): color-guided weighted median by bisection.
 
-The XLA formulation (ops/wmedian.py) materializes (H, W, 225) patch stacks
-in HBM and key-value sorts them — ~200 MB of temporaries per call and a
-bitonic sort over the patch axis.  This kernel computes the identical
-weighted median with O(tile) VMEM and no sort:
+The XLA formulation (ops/wmedian.py) materializes (H, W, P) patch stacks in
+device memory (P = (2·hsz+1)² = 225 at hsz=7; six float32 stacks of ~204 MB
+each at 584x388) and key-value sorts every pixel's P pairs.  This kernel
+computes the same weighted median with no stack and no sort:
 
 * float32 values are encoded into *order-isomorphic* signed int32 keys
-  (sign-magnitude flip; TPU vectors have no unsigned min/max), so the
-  weighted median becomes: the smallest key ``m`` with
-  S(m) = sum of weights of keys <= m  >=  total/2.
+  (sign-magnitude flip), so the weighted median becomes: the smallest key
+  ``m`` with S(m) = sum of weights of keys <= m  >=  total/2.
 * 32 rounds of integer bisection over the key space find ``m`` exactly —
   the invariant S(lo) < total/2 <= S(hi) contracts to adjacent integers,
   and since S only jumps at present keys, ``hi`` lands exactly on a
   sample.  This reproduces the reference's sort+cumsum+searchsorted
   selection (``weighted_median.py:5-21``) without ordering any data.
-* The grid tiles the image (8 rows x 256 cols per program).  Each program
-  DMAs its (32, 384) input windows from HBM into VMEM scratch, carves the
-  225 patch offsets out with *static* value slices (TPU alignment rules:
-  static offsets are free, dynamic offsets must be tile-aligned), and
-  keeps the (8, 225, 256) weight/key stacks in VMEM.  Every bisection
-  step is one fused VPU pass over the stacks; HBM sees each input pixel
-  ~once per overlapping window.
 
-Because inputs stay in HBM and only windows are DMA'd, the kernel scales
-to arbitrary image sizes (4K included).  Mirror padding and the (H, W)
-crop are handled by the wrapper.
+Layout: one program per block of ``BLOCK_PIXELS`` output pixels (row-major
+over the (H, W) output).  The patch axis is padded to ``LANES`` = 256 lanes
+and masked.  Each program gathers its neighbours from the reflect-padded
+planes with masked loads through ``[BLOCK_PIXELS, LANES]`` integer index
+tensors, computes the color-affinity × occlusion weight once (u and v share
+it), encodes both fields' keys, and then runs all 32 bisection rounds of
+both fields on those register-resident tensors: each round is a masked
+weighted row sum and a lo/hi update, with no memory traffic.
 
-Tile-shape study (v5e, 584x388, hsz=7, measured best-of-3 on 30-call jitted
-loops): 8x256 per-field bisection 12.59 ms/call; 8x128 15.19; 16x128 14.21;
-8x128 with both fields fused into one 32-round loop (3 VMEM slabs) 14.41;
-8x256 fused OOMs Mosaic's 16 MB scoped VMEM (3 slabs + the result tensor),
-as does 8x384 per-field.  Lane width dominates: 256-lane ops amortize issue
-overhead better than the 17% padding saved by narrower tiles, and the
-fused-loop traffic saving (~25% fewer slab reads) does not survive the
-narrower tile it forces.  The kernel runs ~2.8 TB/s of VMEM reads — near
-the VPU load roofline — so the remaining lever is fewer bisection rounds,
-and the round count is pinned at 32 by sign-straddling key spans.
-
-Also measured and rejected: a two-phase int16 key split (16 rounds over
-the high halves, re-mask weights, 16 rounds over the low halves) — halves
-the key bytes per round but runs 17.6 ms vs 13.4 in the same process: the
-v5e has no packed-i16 vector compare, so every round pays an i16->i32
-sign-extension that costs more issue slots than the load saving (the loop
-is issue-bound, not byte-bound).  Hoisting the key encode out of the fill
-loop (encode the window once, slice per offset) measured a wash
-(12.7 vs 12.8 ms) — Mosaic already CSEs the per-offset encodes.
-
-Range-narrowed bisection (r4): analyzed on real flow fields and REJECTED
-before building.  The candidate was a sign-split pre-pass (one extra
-weighted pass at mid=-1 removes the sign gap from the key span) +
-per-sign lo/hi narrowing in the fill loop + a per-tile DYNAMIC trip count
-``max over tile of ceil(log2(hi-lo))``.  The bound is per-TILE, not
-per-pixel: the vectorized loop runs until the widest-span pixel of the
-(8, 256) tile converges, and real flow tiles essentially always contain
-one near-zero-straddling patch.  Measured on Middlebury GT flow
-(/tmp-style analysis, 15x15 windows, hsz=7): mean PIXEL needs 21-26
-rounds, but mean TILE trip is 30.4-31.1 on RubberWhale (predicted time
-ratio 0.98-1.00 — zero headline win), 25.0-26.5 on Urban3/Grove3
-(optimistic ratio 0.81-0.86 BEFORE the narrowing passes' cost, and GT
-flow is smoother than the noisier intermediate IRLS estimates the kernel
-actually filters).  A <=10-15% data-dependent kernel win that is ~0 on
-the headline workload does not justify a dynamic-trip Mosaic loop; the
-32-round fixed count stays.  Selection semantics (weighted_median.py:5-21)
-were never at risk — the candidate was exact.
+Weight sums are taken in a different order than the sort path's cumulative
+sum, so a pixel whose half-weight crossing is a float tie could in
+principle select a neighbouring sample; the output is always one of the
+window's own values either way.
 """
 from __future__ import annotations
 
@@ -72,14 +36,14 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-TILE_H = 8
-TILE_W = 256
-_ROW_WINDOW = 32  # >= TILE_H + 2*hsz for hsz <= 12, 8-aligned
-_COL_WINDOW = 384  # >= TILE_W + 2*hsz, 128-aligned
+BLOCK_PIXELS = 2  # output pixels per program (a power of two)
+LANES = 256  # patch axis, padded from (2*hsz+1)^2 (a power of two)
+NUM_WARPS = 1
 
 _SIGN = np.int32(np.uint32(0x80000000).view(np.int32))  # int32 min
+_INT_MAX = np.int32(0x7FFFFFFF)
 
 
 def _encode_f32(x):
@@ -104,154 +68,104 @@ def _midpoint(lo, hi):
 
 
 def _wmedian_kernel(
-    u_hbm,
-    v_hbm,
-    occ_hbm,
-    color_hbm,
-    out_ref,
-    u_win,
-    v_win,
-    occ_win,
-    color_win,
-    w_s,
-    k_s,
-    copy_sem,
-    *,
-    hsz: int,
-    n_chan: int,
+    u_ref, v_ref, occ_ref, color_ref, out_u_ref, out_v_ref,
+    *, H: int, W: int, Hp: int, Wp: int, hsz: int, n_chan: int,
     inv_2sigma2: float,
 ):
     k = 2 * hsz + 1
-    K2 = k * k
     b = pl.program_id(0)
     i = pl.program_id(1)
-    j = pl.program_id(2)
-    r0 = pl.multiple_of(i * TILE_H, TILE_H)
-    c0 = pl.multiple_of(j * TILE_W, 128)
+    plane = Hp * Wp
 
-    # DMA this program's input windows from HBM into VMEM.  Inputs carry a
-    # leading batch axis (grid dim 0): the SAME kernel serves the single-pair
-    # path (B=1) and the vmapped batched path (custom_vmap routes here).
-    copies = [
-        pltpu.make_async_copy(
-            u_hbm.at[b, pl.ds(r0, _ROW_WINDOW), pl.ds(c0, _COL_WINDOW)], u_win, copy_sem.at[0]
-        ),
-        pltpu.make_async_copy(
-            v_hbm.at[b, pl.ds(r0, _ROW_WINDOW), pl.ds(c0, _COL_WINDOW)], v_win, copy_sem.at[1]
-        ),
-        pltpu.make_async_copy(
-            occ_hbm.at[b, pl.ds(r0, _ROW_WINDOW), pl.ds(c0, _COL_WINDOW)], occ_win, copy_sem.at[2]
-        ),
-        pltpu.make_async_copy(
-            color_hbm.at[b, :, pl.ds(r0, _ROW_WINDOW), pl.ds(c0, _COL_WINDOW)],
-            color_win,
-            copy_sem.at[3],
-        ),
-    ]
-    for c in copies:
-        c.start()
-    for c in copies:
-        c.wait()
+    p = i * BLOCK_PIXELS + jax.lax.broadcasted_iota(jnp.int32, (BLOCK_PIXELS,), 0)
+    pix_ok = p < H * W
+    row = p // W
+    col = p % W
+    o = jax.lax.broadcasted_iota(jnp.int32, (LANES,), 0)
+    lane_ok = o < k * k
+    ok = pix_ok[:, None] & lane_ok[None, :]
 
-    Bo = occ_win[:]
-    Bc = [color_win[c] for c in range(n_chan)]
-    centers = [B[hsz : hsz + TILE_H, hsz : hsz + TILE_W] for B in Bc]
+    # flat indices within one (Hp, Wp) plane; masked lanes point at the
+    # plane origin so every address stays in range
+    nbr = (row[:, None] + (o // k)[None, :]) * Wp + (col[:, None] + (o % k)[None, :])
+    nbr = jnp.where(ok, nbr, 0)
+    ctr = jnp.where(pix_ok, (row + hsz) * Wp + (col + hsz), 0)
 
-    # ---- weights: one static slice chain per patch offset -----------------
-    total = jnp.zeros((TILE_H, TILE_W), jnp.float32)
-    for o in range(K2):
-        dy, dx = o // k, o % k
-        cdiff = jnp.zeros((TILE_H, TILE_W), jnp.float32)
-        for c in range(n_chan):
-            patch = Bc[c][dy : dy + TILE_H, dx : dx + TILE_W]
-            cdiff = cdiff + (patch - centers[c]) ** 2
-        occ = Bo[dy : dy + TILE_H, dx : dx + TILE_W]
-        w = jnp.maximum(jnp.exp(-cdiff * inv_2sigma2) * occ, 1e-10)
-        w_s[:, o, :] = w
-        total = total + w
-    half = total * 0.5
+    def gather(ref, idx, mask, plane_index):
+        return plgpu.load(ref.at[idx + plane_index * plane], mask=mask, other=0.0)
 
-    def field_median(B, out_channel):
-        lo = jnp.full((TILE_H, TILE_W), 0x7FFFFFFF, jnp.int32)
-        hi = jnp.full((TILE_H, TILE_W), _SIGN, jnp.int32)
-        for o in range(K2):
-            dy, dx = o // k, o % k
-            keys = _encode_f32(B[dy : dy + TILE_H, dx : dx + TILE_W])
-            k_s[:, o, :] = keys
-            lo = jnp.minimum(lo, keys)
-            hi = jnp.maximum(hi, keys)
+    cdiff = jnp.zeros((BLOCK_PIXELS, LANES), jnp.float32)
+    for c in range(n_chan):
+        cp = b * n_chan + c  # color is (batch * C, Hp, Wp)
+        d = gather(color_ref, nbr, ok, cp) - gather(color_ref, ctr, pix_ok, cp)[:, None]
+        cdiff = cdiff + d * d
+    occ = gather(occ_ref, nbr, ok, b)
+    w = jnp.maximum(jnp.exp(-cdiff * inv_2sigma2) * occ, 1e-10)
+    w = jnp.where(ok, w, 0.0)
+    half = jnp.sum(w, axis=1) * 0.5
+
+    def keys_and_bounds(ref):
+        keys = _encode_f32(gather(ref, nbr, ok, b))
+        lo = jnp.min(jnp.where(ok, keys, _INT_MAX), axis=1)
+        hi = jnp.max(jnp.where(ok, keys, _SIGN), axis=1)
         # S(lo) must be < half: step just below the smallest present key
-        # (finite float32 never encodes to int32 min, so this cannot wrap)
-        lo = lo - 1
+        # (finite float32 never encodes to int32 min, so this cannot wrap).
+        # Padding lanes get the largest key, which no midpoint reaches.
+        return jnp.where(ok, keys, _INT_MAX), lo - 1, hi
 
-        def bisect(_, carry):
-            lo, hi = carry
-            mid = _midpoint(lo, hi)
-            below = jnp.where(k_s[:] <= mid[:, None, :], w_s[:], 0.0)
-            S = jnp.sum(below, axis=1)
-            ge = S >= half
-            return jnp.where(ge, lo, mid), jnp.where(ge, mid, hi)
+    ku, lo_u, hi_u = keys_and_bounds(u_ref)
+    kv, lo_v, hi_v = keys_and_bounds(v_ref)
 
-        lo, hi = jax.lax.fori_loop(0, 32, bisect, (lo, hi))
-        out_ref[0, :, :, out_channel] = _decode_i32(hi)
+    def step(keys, lo, hi):
+        mid = _midpoint(lo, hi)
+        S = jnp.sum(jnp.where(keys <= mid[:, None], w, 0.0), axis=1)
+        ge = S >= half
+        return jnp.where(ge, lo, mid), jnp.where(ge, mid, hi)
 
-    field_median(u_win[:], 0)
-    field_median(v_win[:], 1)
+    def bisect(_, carry):
+        lo_u, hi_u, lo_v, hi_v = carry
+        return (*step(ku, lo_u, hi_u), *step(kv, lo_v, hi_v))
+
+    _, hi_u, _, hi_v = jax.lax.fori_loop(0, 32, bisect, (lo_u, hi_u, lo_v, hi_v))
+    out_u_ref[...] = _decode_i32(hi_u)
+    out_v_ref[...] = _decode_i32(hi_v)
 
 
 def _wmedian_call(u, v, occ, color, *, out_hw, hsz, sigma_i, interpret):
     """Batched kernel invocation: (B, Hp, Wp) fields + (B, C, Hp, Wp) guide
     -> (B, H, W, 2) medians, one pallas_call with a leading batch grid axis."""
-    B = u.shape[0]
+    B, Hp, Wp = u.shape
     H, W = out_hw
-    n_row = -(-H // TILE_H)
-    n_col = -(-W // TILE_W)
     C = color.shape[1]
+    if B * C * Hp * Wp >= 2**31:
+        raise ValueError("weighted-median kernel: flat plane indices overflow int32")
+    n_blk = -(-(H * W) // BLOCK_PIXELS)
     kernel = functools.partial(
-        _wmedian_kernel,
-        hsz=hsz,
-        n_chan=C,
+        _wmedian_kernel, H=H, W=W, Hp=Hp, Wp=Wp, hsz=hsz, n_chan=C,
         inv_2sigma2=float(1.0 / (2.0 * sigma_i**2)),
     )
-    K2 = (2 * hsz + 1) ** 2
-    stacks = [
-        pltpu.VMEM((TILE_H, K2, TILE_W), jnp.float32),
-        pltpu.VMEM((TILE_H, K2, TILE_W), jnp.int32),
-    ]
-    hbm = lambda: pl.BlockSpec(memory_space=pltpu.ANY)
-    out = pl.pallas_call(
+    out_spec = pl.BlockSpec((None, BLOCK_PIXELS), lambda b, i: (b, i))
+    out_shape = jax.ShapeDtypeStruct((B, n_blk * BLOCK_PIXELS), jnp.float32)
+    flat = lambda x: x.reshape(-1)
+    out_u, out_v = pl.pallas_call(
         kernel,
-        grid=(B, n_row, n_col),
-        out_shape=jax.ShapeDtypeStruct(
-            (B, n_row * TILE_H, n_col * TILE_W, 2), jnp.float32
-        ),
-        in_specs=[hbm(), hbm(), hbm(), hbm()],
-        out_specs=pl.BlockSpec(
-            (1, TILE_H, TILE_W, 2), lambda b, i, j: (b, i, j, 0), memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((_ROW_WINDOW, _COL_WINDOW), jnp.float32),  # u window
-            pltpu.VMEM((_ROW_WINDOW, _COL_WINDOW), jnp.float32),  # v window
-            pltpu.VMEM((_ROW_WINDOW, _COL_WINDOW), jnp.float32),  # occ window
-            pltpu.VMEM((C, _ROW_WINDOW, _COL_WINDOW), jnp.float32),  # color window
-            *stacks,
-            pltpu.SemaphoreType.DMA((4,)),
-        ],
+        grid=(B, n_blk),
+        out_shape=(out_shape, out_shape),
+        out_specs=(out_spec, out_spec),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
         interpret=interpret,
-    )(u, v, occ, color)
-    return out[:, :H, :W]
+        name="wmedian_bisect",
+    )(flat(u), flat(v), flat(occ), flat(color))
+    crop = lambda x: x[:, : H * W].reshape(B, H, W)
+    return jnp.stack([crop(out_u), crop(out_v)], axis=-1)
 
 
 @functools.lru_cache(maxsize=None)
 def _wmedian_dispatch(out_hw, hsz, sigma_i, interpret):
-    """custom_vmap wrapper per static configuration.
-
-    ``jax.vmap`` of a pallas_call with ANY-memory-space inputs is not
-    lowerable on TPU (the auto-batching rule emits squeezed block specs on
-    HBM refs), so batching is claimed here instead: the vmap rule stacks the
-    batch into the kernel's leading GRID axis — one compiled program, B x
-    n_row x n_col programs, identical per-tile work.
-    """
+    """custom_vmap wrapper per static configuration: the vmap rule stacks
+    the batch into the kernel's leading GRID axis — one compiled program,
+    B x n_blk programs, identical per-block work."""
     call = functools.partial(
         _wmedian_call, out_hw=out_hw, hsz=hsz, sigma_i=sigma_i, interpret=interpret
     )
@@ -288,35 +202,17 @@ def wmedian_pallas(
         u_pad, v_pad, occ_pad: mirror-padded (H+2h, W+2h) float32 fields.
         color_pad_cmajor: (C, H+2h, W+2h) float32 padded guide image.
         out_hw: static (H, W) output size.
+        interpret: run the kernel in the Pallas interpreter (CPU tests only).
     Returns (H, W, 2) medians.  vmap-safe (see :func:`_wmedian_dispatch`).
     """
-    H, W = out_hw
-    hsz = int(area_hsz)
-    n_row = -(-H // TILE_H)
-    n_col = -(-W // TILE_W)
-    Hp = n_row * TILE_H + (_ROW_WINDOW - TILE_H)
-    Wp = (n_col - 1) * TILE_W + _COL_WINDOW
-
-    def fit(x, axes):
-        cfg = [(0, 0)] * x.ndim
-        for ax, target in axes:
-            cfg[ax] = (0, max(0, target - x.shape[ax]))
-        return jnp.pad(x, cfg)
-
-    u_pad = fit(u_pad, [(-2, Hp), (-1, Wp)])
-    v_pad = fit(v_pad, [(-2, Hp), (-1, Wp)])
-    occ_pad = fit(occ_pad, [(-2, Hp), (-1, Wp)])
-    color_pad_cmajor = fit(color_pad_cmajor, [(-2, Hp), (-1, Wp)])
-
-    dispatch = _wmedian_dispatch((H, W), hsz, float(sigma_i), bool(interpret))
+    dispatch = _wmedian_dispatch(
+        tuple(out_hw), int(area_hsz), float(sigma_i), bool(interpret)
+    )
     return dispatch(u_pad, v_pad, occ_pad, color_pad_cmajor)
 
 
-def wmedian_pallas_ok(H, W, hsz, C, budget_bytes: int = 13 * 1024 * 1024) -> bool:
-    """True when the kernel's static window/scratch configuration applies."""
-    if TILE_H + 2 * hsz > _ROW_WINDOW or TILE_W + 2 * hsz > _COL_WINDOW:
-        return False
-    K2 = (2 * hsz + 1) ** 2
-    windows = (3 + C) * _ROW_WINDOW * _COL_WINDOW * 4
-    scratch = 2 * TILE_H * K2 * TILE_W * 4
-    return windows + scratch <= budget_bytes
+def wmedian_pallas_ok(H, W, hsz, C) -> bool:
+    """True when the kernel applies: the patch fits the padded lane axis and
+    every flat index of the planes fits int32."""
+    k = 2 * hsz + 1
+    return k * k <= LANES and C * (H + 2 * hsz) * (W + 2 * hsz) < 2**31

@@ -12,7 +12,7 @@ penalty is a frozen, hashable :class:`Robust` descriptor whose parameters are
 *trace-time constants*, so method configurations stay static under ``jit``
 and each (penalty, params) pair folds into compiled code.
 
-All math is elementwise ``jax.numpy`` — it runs on the VPU and fuses into
+All math is elementwise ``jax.numpy`` — it fuses into
 surrounding stencil programs.
 """
 from __future__ import annotations

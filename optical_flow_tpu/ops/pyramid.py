@@ -3,7 +3,7 @@
 The pyramid *shape schedule* is computed host-side from (H, W, n_levels,
 ratio) — every level is a static shape, so each level's solve compiles once.
 The smoothing + resize for one level is a fused XLA program: a small
-shift-accumulate Gaussian (VPU) followed by two resize matmuls (MXU).
+shift-accumulate Gaussian followed by two resize matmuls.
 
 Reference behavior reproduced: ``pyramid.py:44-73`` (smooth with
 ``fspecial`` Gaussian, reflect boundary, then ``imresize`` bilinear with

@@ -3,7 +3,7 @@
 Matches reference ``warping.py:6-45``: bilinear resize with MATLAB's
 coordinate convention, and — a parity-critical MATLAB quirk — both flow
 components scaled by the *height* ratio.  Implemented as two resize
-matmuls (MXU) shared across the u and v channels.
+matmuls shared across the u and v channels.
 """
 from __future__ import annotations
 
@@ -29,5 +29,7 @@ def resample_flow(uv, target_hw):
     ratio = new_H / H
     Rh = jnp.asarray(matlab_resize_matrix(H, new_H), dtype=uv.dtype)
     Rw = jnp.asarray(matlab_resize_matrix(W, new_W), dtype=uv.dtype)
-    out = jnp.einsum("oi,ijc,pj->opc", Rh, uv, Rw)
+    out = jnp.einsum(
+        "oi,ijc,pj->opc", Rh, uv, Rw, precision=jax.lax.Precision.HIGHEST
+    )
     return out * ratio

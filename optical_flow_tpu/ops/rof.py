@@ -1,10 +1,10 @@
 """ROF structure–texture decomposition (Chambolle primal–dual).
 
-Reference: ``image_processing.py:52-136``.  The TPU formulation keeps the
+Reference: ``image_processing.py:52-136``.  This formulation keeps the
 dual field ``p`` as loop-carried state in a ``lax.fori_loop`` whose body is
-a single fused VPU program (divergence, gradient, reprojection are all
-shift-arithmetic — XLA fuses the whole iteration, so the 100 iterations
-never round-trip intermediates through HBM between ops).
+a single fused elementwise program (divergence, gradient, reprojection are
+all shift-arithmetic — XLA fuses the whole iteration, so the 100 iterations
+never round-trip intermediates through device memory between ops).
 
 Parity notes: the input is normalized to [-1, 1] *globally across channels*
 (``image_processing.py:71``), and the texture is ``norm - alp*structure``
@@ -25,7 +25,7 @@ def _divergence(p):
 
     Written as shift-and-subtract (concat of slices), NOT ``.at[]`` scatters:
     scatters lower to the slow generic path once batched (vmap turns them
-    into real scatter HLOs), while slices/concats stay fused VPU code.
+    into real scatter HLOs), while slices/concats stay fused elementwise code.
     """
     px, py = p[:, :, 0], p[:, :, 1]
     px_shift = jnp.concatenate([jnp.zeros_like(px[:, :1]), px[:, :-1]], axis=1)
@@ -65,36 +65,7 @@ def structure_texture_decomposition_rof(im, theta=1.0 / 8, n_iters=100, alp=0.95
     im = jnp.asarray(im)
     im_norm = scale_image(im, -1, 1)
 
-    # Kernel selection (measured on a v5e, bit-identical outputs):
-    # * small images (the loop carry fits VMEM): the scatter-free XLA loop
-    #   measures AS FAST as the whole-image VMEM Pallas kernel (0.109 s vs
-    #   0.122 s at 584x388x2) while the kernel pays ~8 min of Mosaic
-    #   compile — XLA already keeps the ~4 MB carry resident.  XLA default;
-    #   the whole-image kernel stays opt-in (OFTPU_ROF_IMPL=pallas).
-    # * large images (4K: the carry round-trips HBM every iteration, ~8% of
-    #   peak bandwidth): the TILED kernel — VMEM-resident (464, 768)
-    #   windows with overlap-and-discard halos — measures 56 ms vs 159 ms
-    #   per 4K channel (2 s Mosaic compile) and is the 'auto' default.
-    import os
-
-    impl = os.environ.get("OFTPU_ROF_IMPL", "auto")
-    on_tpu_f32 = im.dtype == jnp.float32 and jax.default_backend() == "tpu"
     rof2d = lambda x: rof_structure_2d(x, theta, n_iters)
-    if on_tpu_f32 and impl in ("auto", "pallas"):
-        from optical_flow_tpu.ops.pallas.rof_kernel import (
-            _HALO_C,
-            _HALO_R,
-            rof_structure_2d_pallas,
-            rof_structure_2d_tiled,
-            rof_vmem_ok,
-        )
-
-        if rof_vmem_ok(im.shape[:2]):
-            if impl == "pallas":
-                rof2d = lambda x: rof_structure_2d_pallas(x, theta, n_iters)
-        elif n_iters <= min(_HALO_R, _HALO_C):
-            rof2d = lambda x: rof_structure_2d_tiled(x, theta, n_iters)
-
     if im_norm.ndim == 3:
         structure = jnp.stack(
             [rof2d(im_norm[:, :, c]) for c in range(im_norm.shape[2])],

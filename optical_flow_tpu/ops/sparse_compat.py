@@ -1,6 +1,6 @@
 """Explicit convolution-operator matrices (compatibility shims).
 
-The TPU framework never materializes sparse filter matrices — the spatial
+The framework never materializes sparse filter matrices — the spatial
 term lives as a matrix-free stencil (:mod:`optical_flow_tpu.ops.stencil`).
 These host-side helpers exist for users of the reference API
 (``utils/sparse_ops.py``) who inspect the operators directly, and for

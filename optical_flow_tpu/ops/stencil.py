@@ -15,8 +15,8 @@ weights: the Neumann graph Laplacian.)
 
 So the whole system is represented here by small dense coefficient fields
 (:class:`FlowSystem`) and applied matrix-free as one fused stencil — the
-natural TPU formulation: O(HW) memory instead of O(HW · nnz), every apply a
-single VPU pass, and trivially shard-able over an image-tiled device mesh
+natural accelerator formulation: O(HW) memory instead of O(HW · nnz), every
+apply a single fused elementwise pass, and trivially shard-able over an image-tiled device mesh
 (halo radius 1).
 """
 from __future__ import annotations

@@ -14,10 +14,12 @@ Python loop.  Here the whole filter is one data-parallel program:
 
 For large images the rows are processed in static chunks to bound the
 (H, W, P) intermediate footprint.
+
+On the GPU, float32 calls run the Pallas kernel in
+``ops/pallas/wmedian_kernel.py`` instead: the same selection by bisection
+over order-preserving integer keys, with no patch stacks and no sort.
 """
 from __future__ import annotations
-
-import os
 
 import numpy as np
 import jax
@@ -25,15 +27,10 @@ import jax.numpy as jnp
 
 from optical_flow_tpu.ops.filters import median_filter2d
 
-# 'auto' | 'sort' | 'pallas' — auto picks the Pallas bisection kernel on
-# TPU float32 whenever the tile configuration fits VMEM.
-WMEDIAN_IMPL = os.environ.get("OFTPU_WMEDIAN_IMPL", "auto")
-
-
 def _impl_for(H, W, hsz, C, dtype) -> str:
-    if WMEDIAN_IMPL != "auto":
-        return WMEDIAN_IMPL
-    if dtype != jnp.float32 or jax.default_backend() != "tpu":
+    """'pallas' (the GPU kernel) for float32 on the GPU when the patch fits
+    its lane axis; 'sort' (the XLA path) otherwise."""
+    if dtype != jnp.float32 or jax.default_backend() != "gpu":
         return "sort"
     from optical_flow_tpu.ops.pallas.wmedian_kernel import wmedian_pallas_ok
 
@@ -184,7 +181,7 @@ def wmedfilt_prepadded(
 
     # Sequential chunking via lax.map: one chunk's patch stacks live at a
     # time.  (A Python loop would emit independent subgraphs that XLA's
-    # scheduler overlaps, multiplying peak HBM by the chunk count.)
+    # scheduler overlaps, multiplying peak device memory by the chunk count.)
     n_chunks = -(-H // row_chunk)
     pad_rows = n_chunks * row_chunk - H
     if pad_rows:

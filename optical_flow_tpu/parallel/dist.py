@@ -1,7 +1,7 @@
 """Distributed matrix-free CG over a row-sharded image grid.
 
 The flow system's stencil structure makes the distributed solver cheap:
-one radius-1 halo exchange (``ppermute`` over ICI) per operator apply, and
+one radius-1 halo exchange (``ppermute``) per operator apply, and
 ``psum``-reduced inner products — the Schur-complement-free analog of the
 reference's global ``spsolve`` (which cannot scale at all, SURVEY §5).
 
@@ -64,9 +64,8 @@ def solve_flow_system_local(
     """PCG on a row-sharded FlowSystem; call inside ``shard_map``.
 
     CHANNEL-SPLIT, like the single-chip path: the CG state is (u, v) plane
-    pairs, not a trailing-dim-2 stack — the stacked layout tiles (W, 2)
-    minor on TPU, 2/128 lane occupancy for every elementwise op of the CG
-    body, measured 21%/iter slower at 4K (``solvers/cg.py::pcg_solve_split``).
+    pairs, not a trailing-dim-2 stack (``solvers/cg.py::pcg_solve_split``
+    has the layout argument).
     The mesh path pays no extra collectives for the split:
 
     * the loop-invariant vertical edge weights (wu_v, wv_v) are
@@ -86,13 +85,10 @@ def solve_flow_system_local(
     (Chebyshev semi-iteration, one psum per 16-iteration stopping block +
     a one-time Lanczos bounds pass) at ~1.9× the iteration count
     (``solvers/chebyshev.py``).
-    Measured on the 2-process Gloo dryrun where every collective
-    round-trips the cross-process runtime (best-of-3, MULTIHOST.json):
-    gear 1.49× and cheby 1.37–1.76× vs classic, trading places across
-    runs — localhost psums are cheap enough that cheby's iteration
-    penalty cancels its 16× lower psum rate; on a latency-dominated
-    fabric the per-iteration collective count (3 / 1 / 1-per-16) is
-    what scales.  Single-chip both are measured losses (DESIGN §4a).
+    On a latency-dominated fabric the per-iteration collective count
+    (3 / 1 / 1-per-16) is what scales; on one device both cost more than
+    classic.  ``benchmarks/multihost.py`` A/Bs the three on a 2-process
+    CPU runtime.
     Default follows ``OFTPU_CG_ALGO`` ('classic' unless set:
     same-recurrence-everywhere keeps sharded-vs-single-device parity at
     the 1e-8 the test suite pins).

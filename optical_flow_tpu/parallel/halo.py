@@ -2,7 +2,7 @@
 
 The image grid is tiled along H across the ``space`` mesh axis.  Every
 stencil of radius r needs r rows from each neighbor; strips move between
-ICI neighbors with ``lax.ppermute`` (the same communication shape as ring
+mesh neighbors with ``lax.ppermute`` (the same communication shape as ring
 attention's KV rotation).
 
 Global edges (the top of shard 0, the bottom of shard n-1) are filled
@@ -61,7 +61,7 @@ def halo_exchange_rows(x, radius: int, axis_name: str, mode: str = "zero"):
     """Extend a local (Hs, W[, C]) block with ``radius`` rows of halo.
 
     Returns an array of shape (Hs + 2*radius, W[, C]).  Interior shards
-    receive neighbor rows over ICI; the global top/bottom edges are filled
+    receive neighbor rows; the global top/bottom edges are filled
     per ``mode`` (see module docstring).
     """
     top_halo = _shift_down(x[-radius:], axis_name)  # from the shard above

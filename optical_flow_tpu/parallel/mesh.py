@@ -1,15 +1,15 @@
 """Device mesh construction for multi-chip flow estimation.
 
-The reference is strictly single-process (SURVEY §2); the TPU framework
+The reference is strictly single-process (SURVEY §2); this framework
 scales along two axes:
 
 * ``batch`` — data parallelism over frame pairs (embarrassingly parallel),
 * ``space`` — image-domain tiling: the pixel grid is the "sequence", shards
-  exchange halo strips over ICI (``ppermute``), and CG inner products
+  exchange halo strips (``ppermute``), and CG inner products
   reduce with ``psum`` — the context-parallel analog for a pixel grid.
 
-No NCCL/MPI anywhere: XLA collectives over ICI (intra-slice) / DCN
-(multi-host via ``jax.distributed.initialize``).
+Collectives are XLA's own (NCCL on GPUs); multi-host runs go through
+``jax.distributed.initialize``.
 """
 from __future__ import annotations
 

@@ -7,12 +7,12 @@ impossible.  Across a video stream it is natural: flatten the whole
 (GNC stage, pyramid level) schedule into an ordered list of level steps,
 partition it into contiguous STAGE GROUPS balanced by pixel count, pin
 each group to its own device, and keep several frames in flight — frame
-t runs group s while frame t+1 runs group s-1.  TPU-idiomatically, the
+t runs group s while frame t+1 runs group s-1.  The
 overlap comes from JAX's asynchronous dispatch: the host submits every
 (frame, group) tick in dependency order without blocking, and each
 device works through its own queue; inter-group handoffs are
 device-to-device transfers of the (resampled-on-arrival) flow state —
-a few hundred KB per tick, riding ICI on a real pod.
+a few hundred KB per tick.
 
 The pipeline reuses the SAME jitted per-level programs as the per-level
 execution path (``methods/*_level_resampled``, static config

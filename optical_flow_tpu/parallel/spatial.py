@@ -4,7 +4,7 @@ The pixel grid is the "sequence": image rows are tiled across the ``space``
 mesh axis, and a WHOLE pyramid-level solve — warp + derivatives, the
 robust IRLS (or Horn–Schunck) system, distributed PCG, occlusion detection,
 (weighted) median filtering — runs inside one ``shard_map``, exchanging
-only halo strips (``ppermute``) and CG inner products (``psum``) over ICI.
+only halo strips (``ppermute``) and CG inner products (``psum``).
 This is the capability seam the reference cannot scale past
 (``/root/reference/optical_flow/methods/base.py:87-172``: a global spsolve;
 SURVEY §2's tiling table).
@@ -25,7 +25,7 @@ Interpolation paths: ``'bi-cubic'`` (Hermite), ``'bi-linear'``, and
 ``'cubic'`` (scipy cubic B-spline — the hs/ba/classic-c default).  The
 spline *prefilter* is a global operator, but it is flow-independent
 per-level preprocessing: the host wrapper computes the coefficient tables
-globally (MXU matmuls, :func:`~optical_flow_tpu.ops.interp.spline_coeffs_2d`)
+globally (matmuls, :func:`~optical_flow_tpu.ops.interp.spline_coeffs_2d`)
 outside ``shard_map`` and shards them; only the 4x4 *evaluation* gathers
 run locally with halo reads.
 
@@ -408,7 +408,7 @@ def _global_spline_tables(images, deriv_filter, scfg: SpatialConfig):
     """GLOBAL spline coefficient tables for the 'cubic' warp path.
 
     Runs jitted but *outside* shard_map in the host wrapper: the B-spline
-    prefilter is a global tridiagonal solve (recast as dense-inverse MXU
+    prefilter is a global tridiagonal solve (recast as dense-inverse
     matmuls in ops/interp.py), but it is flow-independent per-level
     preprocessing — only the 4x4 evaluation must be local, and it is
     (see ``cubic_local``).  Pad rows are reflect-filled so clamped

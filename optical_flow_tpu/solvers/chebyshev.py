@@ -1,56 +1,22 @@
-"""Chebyshev semi-iteration for the flow system: a reduce-free solver study.
+"""Chebyshev semi-iteration for the flow system: a reduce-free solver.
 
-Motivation (DESIGN §4a): the 0.80 s 4K frame is CG-iteration-count bound,
-with 254 ms/frame in the CG dot-product reduce passes — XLA emits 2 reduce
-passes per classic-PCG iteration (p·Ap, then r·z fused with the stopping
-‖r‖²) and will not horizontally fuse them (measured; the gear study).
-Chebyshev semi-iteration [Golub & Varga 1961; Saad, *Iterative Methods*,
-§12.3] replaces the inner products with a fixed three-term recurrence
-driven by eigenvalue bounds [λmin, λmax] of the preconditioned operator
-M⁻¹A — ZERO reductions in the iteration body.  The residual norm is only
-needed for STOPPING, so it can be checked every ``check_every`` iterations
-(with no per-iteration scalars, K-batching the check is finally free).
+Classic PCG needs two reduce passes per iteration (p·Ap, then r·z fused
+with the stopping ‖r‖²).  Chebyshev semi-iteration [Golub & Varga 1961;
+Saad, *Iterative Methods*, §12.3] replaces the inner products with a fixed
+three-term recurrence driven by eigenvalue bounds [λmin, λmax] of the
+preconditioned operator M⁻¹A — ZERO reductions in the iteration body.  The
+residual norm is only needed for STOPPING, so it is checked every
+``check_every`` iterations.
 
 The price is iteration count: CG builds the optimal polynomial for the
 actual spectrum (and exploits clustering — the block-Jacobi-preconditioned
 flow systems cluster hard near 1); Chebyshev commits to the minimax
 polynomial on the whole interval [λmin, λmax], so it needs
-~sqrt(κ)·ln(2/ε)/2 iterations REGARDLESS of clustering.  For the flow
-systems the data-term-weak pixels push λmin to ~1e-2·λmax, so the
-interval is wide even though CG sees an effectively tighter spectrum.
-The A/B below measures exactly this trade on real 4K systems.
-
-SINGLE-CHIP MEASURED REJECTION (v5e, smooth Classic+NL stage-2 systems,
-rtol 1e-3, checksum-synced best-of-3; benchmarks/results_cheby_study.json):
-
-========== ============== ============== ================
-size       CG (iters)     Cheby (iters)  per-iter cg/ch
-========== ============== ============== ================
-2160x3840  0.171 s (67)   0.351 s (128)  2.14 / 2.33 ms
-1080x1920  0.049 s (64)   0.061 s (112)  0.33 / 0.31 ms
-540x960    0.026 s (65)   0.029 s (112)  (noise floor)
-========== ============== ============== ================
-
-Two findings, both load-bearing for DESIGN §4a:
-
-1. The iteration-count penalty is the predicted ~1.9x (κ≈107,
-   Lanczos-measured) — CG's spectrum adaptivity is worth that much on
-   these systems.
-2. **Removing BOTH per-iteration reduce passes did not reduce
-   per-iteration cost at 4K** (2.14 → 2.33 ms — cheby is ~9% SLOWER per
-   iteration).  The CG iteration is already at the stencil-streaming
-   bandwidth floor: XLA overlaps/fuses the dot-product traffic with the
-   elementwise passes, so the trace's "254 ms of reduces" is concurrent
-   HBM occupancy, not separable work.  A reduce-free recurrence therefore
-   buys nothing single-chip; the only remaining 4K lever is iteration
-   COUNT (a stronger preconditioner — and MG was already a measured
-   net loss, DESIGN §4a).
-
-The module stays: as the measurement record, and because the collective
-profile is real on a MESH — the body needs NO collectives, only 1 psum
-per K-block stopping check vs gear's 1/iter (``parallel/dist.py``
-``algo='cheby'``; multihost.py A/Bs all three on the 2-process Gloo
-runtime).
+~sqrt(κ)·ln(2/ε)/2 iterations REGARDLESS of clustering — about 1.9x CG's
+count on Classic+NL systems (κ≈107, Lanczos-measured).  On one device that
+is a loss; on a MESH the body needs NO collectives, only 1 psum per K-block
+stopping check vs gear's 1/iter (``parallel/dist.py`` ``algo='cheby'``;
+benchmarks/multihost.py A/Bs all three on a 2-process runtime).
 
 Eigenvalue bounds come from :func:`lanczos_bounds_split`: k steps of the
 preconditioned Lanczos recurrence (mathematically the PCG coefficient
@@ -60,7 +26,7 @@ OVERestimate λmin; the widening factors make the interval safe — a λ
 outside the interval makes Chebyshev stagnate, not just slow down).
 
 Reference counterpart: none — the reference's only solvers are spsolve /
-scipy CG / SOR (``base.py:87-172``); this is TPU-native perf engineering
+scipy CG / SOR (``base.py:87-172``); this is performance engineering
 on the same fixed point (stopping rule ‖r‖ ≤ rtol‖b‖ preserved).
 """
 from __future__ import annotations
@@ -155,9 +121,7 @@ def cheby_solve_split(
     exhausted budget (reference semantics).  The 12-step Lanczos bounds'
     smallest Ritz value converges slowest, so ``shrink=0.8`` is margin,
     not a guarantee; callers that need certainty pass
-    ``return_iters=True`` and treat ``k >= maxiter`` as not-converged
-    (the study harness also re-checks ‖r‖/‖b‖ explicitly —
-    ``cheby_relres`` in results_cheby_study.json).
+    ``return_iters=True`` and treat ``k >= maxiter`` as not-converged.
     """
     from optical_flow_tpu.solvers.cg import _block_jacobi_split
 

@@ -1,7 +1,7 @@
 """Red-black SOR for the coupled flow system.
 
 The reference's ``'sor'`` solver (``base.py:138-172``) is a lexicographic
-Gauss–Seidel SOR loop in Python — inherently sequential.  The TPU-native
+Gauss–Seidel SOR loop in Python — inherently sequential.  The data-parallel
 equivalent is red-black ordering: the spatial graph is bipartite under
 checkerboard coloring, so each half-sweep updates an independent set of
 pixels in one fused vector pass.  Iterates differ from lexicographic order

@@ -3,7 +3,7 @@
 These helpers reproduce the handful of MATLAB quirks that decide AEPE/AAE
 parity with the reference pipeline (see reference ``interface.py:74-141``,
 ``image_processing.py:6-49``).  Everything here is pure ``jax.numpy`` and
-shape-polymorphic, so it can run on TPU inside ``jit`` or host-side.
+shape-polymorphic, so it can run on the device inside ``jit`` or host-side.
 """
 from __future__ import annotations
 
@@ -101,11 +101,11 @@ def rgb2lab(im):
     R, G, B = R * scale, G * scale, B * scale
 
     T = 0.008856
-    # Explicit linear combinations, NOT a 3x3 matmul: TPU f32 matmuls
-    # truncate operands to bf16 (and XLA lowers the single-pair vs
-    # vmapped-batched contraction differently), which perturbed the Lab
-    # guide by up to ~1.4% and broke batched-vs-single flow parity.
-    # Elementwise FMAs stay exact f32 on the VPU in every batching mode.
+    # Explicit linear combinations, NOT a 3x3 matmul: a default-precision
+    # f32 matmul may round its operands (TF32 on the GPU), and XLA lowers the
+    # single-pair vs vmapped-batched contraction differently, which would
+    # perturb the Lab guide and break batched-vs-single flow parity.
+    # Elementwise FMAs stay exact f32 in every batching mode.
     X = (0.412453 * R + 0.357580 * G + 0.180423 * B) / 0.950456
     Y = 0.212671 * R + 0.715160 * G + 0.072169 * B
     Z = (0.019334 * R + 0.119193 * G + 0.950227 * B) / 1.088754

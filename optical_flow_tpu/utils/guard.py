@@ -5,7 +5,7 @@ trajectory (classic-c-a's default lambda2 annealing reaches ~1e48 on a
 real RubberWhale crop, ``/root/reference/optical_flow/methods/alt_ba.py:
 189-274`` — captured by ``tests/test_full_parity.py``) silently
 propagates non-finite values through every later pyramid level and out
-of ``estimate_flow``.  On TPU the failure surface is wider: f32
+of ``estimate_flow``.  In float32 the failure surface is wider: f32
 overflows at 3.4e38 (the same trajectory the reference's f64 survives),
 and a wedged device can return garbage.  The framework therefore adds an
 explicit, opt-in detection + recovery layer at the pyramid-level

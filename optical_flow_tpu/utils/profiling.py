@@ -4,7 +4,7 @@ The reference's only observability is wall-clock prints per GNC stage
 (``ba.py:95,132-133``).  Here:
 
 * :func:`trace` — context manager around ``jax.profiler`` emitting a
-  TensorBoard-compatible device trace (per-kernel timing on TPU).
+  TensorBoard-compatible device trace (per-kernel timing).
 * :class:`StageTimer` — lightweight host-side stage timing with device
   synchronization, for quick breakdowns without a trace viewer.
 * :func:`annotate` — named trace annotation for host-side phases.

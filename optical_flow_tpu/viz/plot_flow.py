@@ -9,14 +9,14 @@ lifecycle, sentinel filtering, dispatch).
 Unlike the reference, the Agg backend is NOT forced at import: matplotlib
 already falls back to Agg on headless hosts, and forcing it would clobber
 notebook inline backends (the executed demo notebook renders through this
-module).
+module).  matplotlib itself is imported only when a plot is drawn, so the
+package imports on hosts without it.
 """
 from __future__ import annotations
 
 import numpy as np
-import matplotlib.pyplot as plt
 
-from optical_flow_tpu.viz.flow_color import UNKNOWN_FLOW_THRESH, flow_to_color  # noqa: E402
+from optical_flow_tpu.viz.flow_color import UNKNOWN_FLOW_THRESH, flow_to_color
 
 _RENDERERS = {}
 
@@ -85,6 +85,8 @@ def plot_flow(uv, style: str = "color", ax=None, max_flow=None, step: int = 1):
     v = np.where(unknown, 0.0, uv[:, :, 1].astype(float))
 
     if ax is None:
+        import matplotlib.pyplot as plt
+
         ax = plt.subplots(1, 1, figsize=(8, 6))[1]
     ax.set_title(renderer(ax, u, v, uv, max_flow, step))
     ax.axis("off")

@@ -91,7 +91,7 @@ def test_classic_c_a_guard_recovers():
 
     ope = load_of_method("classic-c-a")
     ope.display = False
-    ope.dtype = jnp.float32  # the TPU dtype: the divergence overflows f32
+    ope.dtype = jnp.float32  # the device dtype: the divergence overflows f32
     ope.guard_flow = None  # parity switch: reproduce the reference blow-up
     ope.images = images
     blown = np.asarray(ope.compute_flow())

@@ -3,7 +3,7 @@
 Two OS processes x 4 virtual CPU devices, jax.distributed against a
 localhost coordinator: the DP batch mesh and the sharded-SP level step
 (halo ppermute + CG psum crossing the process boundary over Gloo) must
-reproduce the unsharded programs.  See MULTIHOST.json / DESIGN §8.
+reproduce the unsharded programs.
 """
 import json
 import os
@@ -24,7 +24,7 @@ def test_multihost_two_process_dryrun(tmp_path):
         capture_output=True,
         text=True,
         timeout=1500,
-        cwd=str(tmp_path),  # MULTIHOST.json still lands at the repo root
+        cwd=str(tmp_path),
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     res = json.loads(proc.stdout.strip().splitlines()[-1])

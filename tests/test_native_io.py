@@ -65,6 +65,24 @@ def test_png_decoder_matches_pil_on_dataset(data_dir):
         np.testing.assert_array_equal(ours, pil)
 
 
+def test_png_python_fallback_on_dataset(data_dir, monkeypatch):
+    """With the native decoder and PIL both unavailable, the numpy + zlib
+    fallback decodes a dataset frame to the same bytes as the C decoder."""
+    import sys
+
+    from optical_flow_tpu.io import png
+
+    p = os.path.join(data_dir, "other-data", "RubberWhale", "frame10.png")
+    with open(p, "rb") as f:
+        assert f.read(8) == png._PNG_SIG
+    monkeypatch.setattr(png, "_native", lambda: None)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    out = png.read_png(p)
+    assert out.shape == (388, 584, 3) and out.dtype == np.uint8
+    monkeypatch.undo()
+    np.testing.assert_array_equal(out, png.read_png(p))
+
+
 @pytest.mark.parametrize("mode", ["L", "RGB", "RGBA", "LA", "P"])
 def test_png_decoder_modes(tmp_path, rng, mode):
     """All supported color types decode byte-exactly (palette expands to RGB)."""

@@ -1,4 +1,4 @@
-"""Pallas TPU kernels, verified in interpreter mode against the XLA paths."""
+"""Pallas GPU kernels, verified in interpreter mode against the XLA paths."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -14,36 +14,9 @@ def _fresh_compile_state():
     jax.clear_caches()
     yield
 
-from optical_flow_tpu.ops.pallas.rof_kernel import rof_structure_2d_pallas
+from optical_flow_tpu.ops.pallas import wmedian_kernel as wk
 from optical_flow_tpu.ops.pallas.wmedian_kernel import wmedian_pallas, wmedian_pallas_ok
-from optical_flow_tpu.ops.rof import rof_structure_2d
 from optical_flow_tpu.ops.wmedian import denoise_color_weighted_medfilt2
-
-
-def test_rof_kernel_matches_xla(rng):
-    im = jnp.asarray(rng.uniform(-1, 1, (33, 47)), jnp.float32)
-    ref = np.asarray(rof_structure_2d(im))
-    out = np.asarray(rof_structure_2d_pallas(im, 1.0 / 8, 100, True))
-    np.testing.assert_allclose(out, ref, atol=1e-6)
-
-
-def test_rof_tiled_kernel_matches_xla(rng):
-    """Overlap-and-discard tiled ROF (the 4K 'auto' kernel) is bit-exact.
-
-    Sizes span multiple tiles in both dims with non-divisible remainders,
-    so tile-interior, tile-boundary, true-edge, and pad-region paths are
-    all exercised (interpret mode; bit-exact on hardware too — measured
-    max|diff| 0.0 at 4K on the v5e, 56 ms vs 159 ms per channel).
-    """
-    from optical_flow_tpu.ops.pallas.rof_kernel import rof_structure_2d_tiled
-
-    im = jnp.asarray(rng.uniform(-1, 1, (300, 600)), jnp.float32)
-    ref = np.asarray(jax.jit(lambda x: rof_structure_2d(x, 1.0 / 8, 40))(im))
-    out = np.asarray(rof_structure_2d_tiled(im, 1.0 / 8, 40, True))
-    np.testing.assert_array_equal(out, ref)
-
-    with pytest.raises(ValueError, match="halo"):
-        rof_structure_2d_tiled(im, 1.0 / 8, 200, True)
 
 
 @pytest.mark.parametrize("shape,hsz,C", [((19, 23), 3, 3), ((40, 300), 7, 3), ((16, 260), 2, 1)])
@@ -96,73 +69,36 @@ def test_wmedian_kernel_duplicate_values(rng):
 
 
 def test_wmedian_guard():
+    """The patch axis (2*hsz+1)^2 is padded to the kernel's 256 lanes, so
+    the kernel applies up to hsz=7 (225 patch values) at any image size."""
+    assert wk.LANES == 256 and (wk.LANES & (wk.LANES - 1)) == 0
+    assert wk.BLOCK_PIXELS & (wk.BLOCK_PIXELS - 1) == 0
     assert wmedian_pallas_ok(388, 584, 7, 3)
-    assert wmedian_pallas_ok(2160, 3840, 7, 3)  # 4K: DMA windows scale to any size
-    assert not wmedian_pallas_ok(100, 100, 15, 3)  # window exceeds static config
+    assert wmedian_pallas_ok(2160, 3840, 7, 3)
+    assert not wmedian_pallas_ok(100, 100, 8, 3)  # 289 patch values > 256 lanes
+    assert not wmedian_pallas_ok(2**15, 2**15, 7, 3)  # flat indices overflow int32
 
 
-def _random_system(rng, H, W):
-    from optical_flow_tpu.ops.stencil import FlowSystem
-
-    def f32(*s):
-        return jnp.asarray(rng.uniform(0.1, 1.0, s), jnp.float32)
-
-    wu_h = f32(H, W).at[:, -1].set(0)
-    wu_v = f32(H, W).at[-1, :].set(0)
-    wv_h = f32(H, W).at[:, -1].set(0)
-    wv_v = f32(H, W).at[-1, :].set(0)
-    return FlowSystem(
-        f32(H, W) + 1.0, 0.5 * f32(H, W), f32(H, W) + 1.0,
-        wu_h, wu_v, wv_h, wv_v, f32(H, W), f32(H, W),
+def test_wmedian_kernel_block_count():
+    """One program per BLOCK_PIXELS output pixels, row-major over (H, W):
+    the grid covers ceil(H*W / BLOCK_PIXELS) blocks and the tail block's
+    masked pixels are cropped away."""
+    H, W, hsz, C = 5, 7, 1, 1  # 35 pixels: full blocks + a partial tail
+    traced = jax.jit(
+        lambda u, v, o, c: wmedian_pallas(u, v, o, c, (H, W), hsz, 7.0, True)
+    ).trace(
+        *(jax.ShapeDtypeStruct((H + 2 * hsz, W + 2 * hsz), jnp.float32),) * 3,
+        jax.ShapeDtypeStruct((C, H + 2 * hsz, W + 2 * hsz), jnp.float32),
     )
-
-
-def test_cg_kernel_matches_xla_pcg(rng):
-    """The VMEM-resident whole-PCG kernel solves the same system to the
-    same tolerance as the XLA while_loop (reduction order may differ, so
-    compare solutions, tightly)."""
-    from optical_flow_tpu.ops.pallas.cg_kernel import cg_solve_pallas
-    from optical_flow_tpu.ops.stencil import system_apply, system_diag, system_rhs
-    from optical_flow_tpu.solvers.cg import pcg_solve
-
-    sysm = _random_system(rng, 30, 132)  # non-multiple of (8, 128)
-    b = system_rhs(sysm)
-    x_ref = np.asarray(
-        pcg_solve(lambda y: system_apply(sysm, y), b, system_diag(sysm),
-                  1e-7, 1000, a12=sysm.a12)
-    )
-    x_k = np.asarray(cg_solve_pallas(sysm, 1e-7, 1000, interpret=True))
-    scale = np.abs(x_ref).max()
-    np.testing.assert_allclose(x_k, x_ref, atol=1e-5 * max(scale, 1.0))
-    # residual actually below tolerance
-    r = np.asarray(system_apply(sysm, jnp.asarray(x_k))) - np.asarray(b)
-    assert np.linalg.norm(r) <= 1e-6 * np.linalg.norm(np.asarray(b)) * 10
-
-
-def test_cg_kernel_vmap_batched(rng):
-    """vmap routes through the custom batching rule (leading batch GRID
-    axis); each batch element converges independently."""
-    import jax
-
-    from optical_flow_tpu.ops.stencil import FlowSystem
-    from optical_flow_tpu.ops.pallas.cg_kernel import cg_solve_pallas
-
-    B, H, W = 3, 24, 40
-    systems = [_random_system(rng, H, W) for _ in range(B)]
-    batched = FlowSystem(*[jnp.stack([getattr(s, f) for s in systems])
-                           for f in FlowSystem._fields])
-    singles = [np.asarray(cg_solve_pallas(s, 1e-6, 400, interpret=True)) for s in systems]
-    out = np.asarray(
-        jax.jit(jax.vmap(lambda s: cg_solve_pallas(s, 1e-6, 400, interpret=True)))(batched)
-    )
-    for b in range(B):
-        np.testing.assert_allclose(out[b], singles[b], atol=1e-5)
+    n_blk = -(-(H * W) // wk.BLOCK_PIXELS)
+    assert (H * W) % wk.BLOCK_PIXELS != 0
+    assert f"f32[1,{n_blk * wk.BLOCK_PIXELS}]" in str(traced.jaxpr)
+    assert traced.out_info.shape == (H, W, 2)
 
 
 def test_wmedian_kernel_vmap_batched(rng):
     """vmap of the kernel routes through the custom batching rule (leading
-    batch GRID axis — a vmapped ANY-space pallas_call cannot lower on TPU)
-    and must equal the per-pair results bit-exactly."""
+    batch GRID axis) and must equal the per-pair results bit-exactly."""
     import jax
 
     H, W, hsz, C, B = 40, 56, 7, 3, 3

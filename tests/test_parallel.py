@@ -218,7 +218,7 @@ def test_batched_classic_nl_carries_color_guide():
 @needs_8
 @pytest.mark.parametrize("method", ["hs-brightness", "classic-c-brightness"])
 def test_batched_fused_matches_per_level(synthetic_pair, method):
-    """fuse=True batched path (one vmapped whole-flow program — the TPU
+    """fuse=True batched path (one vmapped whole-flow program — the GPU
     default) must reproduce the per-level batched programs."""
     from optical_flow_tpu.parallel.batch import estimate_flow_batched
 

@@ -212,8 +212,8 @@ def test_pcg_split_matches_stacked(rng):
 
 
 def test_pcg_gear_matches_classic(rng):
-    """The Chronopoulos–Gear recurrence (one fused reduce pass/iteration on
-    TPU) is the same solver as classic PCG: identical fixed point,
+    """The Chronopoulos–Gear recurrence (one fused reduce pass/iteration)
+    is the same solver as classic PCG: identical fixed point,
     preconditioner, and stopping rule — in exact arithmetic the iterates
     coincide, so agreement is to recurrence-rounding precision even at a
     tight tolerance, and both match the dense solve."""
